@@ -100,20 +100,18 @@ print(evaluate_topn(ids, counts, test_csr, fmarker))
 print("objective:", stats["loss"])
 
 # --------------------------------------------------------------------- #
-# 8. TPU knobs (all optional; defaults are auto-tuned)
+# 8. Device execution knobs (all optional)
 # --------------------------------------------------------------------- #
-# gram:   "auto" (cost model) | "device" (sparse triplets scatter-
-#         densified on device; wins when host<->device bandwidth is the
-#         bottleneck) | "host" (native OpenMP SpGEMM).
-# kernel: "auto" | "pallas" (whole-array VMEM sweep kernel) |
-#         "pallas_large" (HBM-resident panelized) | "xla".
+# gram:   "auto" (device when G fits its memory) | "device" (sparse CSR
+#         scatter-densified on device) | "host" (native OpenMP SpGEMM).
+# kernel: "auto" (by platform) | "triton" (GPU chunk kernel) | "xla".
 # block_size, compact_threshold, shuffle, checkpoint_dir (crash-resume
 # of column blocks), profile_dir (jax.profiler trace): see SlimConfig.
 mdl2, _ = learn(train_csr, SlimConfig(l1r=0.5, l2r=1.0, gram="device"))
 
-# Large catalogues: beyond 36864 items predict_topn switches to a
-# padded-sparse device model automatically (HBM = n*R*8 bytes instead of
-# n^2*4); force either path with sparse=True/False.
+# Large catalogues: once a dense W no longer fits the device memory,
+# predict_topn switches to a padded-sparse device model automatically
+# (n*R*8 bytes instead of n^2*4); force either path with sparse=True/False.
 ids2, _, _ = predict_topn(mdl2, train_csr, nrcmds=10, sparse=True)
 
 # Serving pattern (one model, many request batches): build the device
@@ -167,7 +165,7 @@ if len(jax.devices()) > 1:
     bmodel, bstats = distributed_learn_blockwise(
         train_csr, SlimConfig(l1r=1.0, l2r=1.0, block_size=128), mesh)
     # sharded-G mode: G computed once, column-sharded over the grid
-    # (per-device HBM = n^2*4/ndev) -- the pod middle regime where
+    # (per-device memory = n^2*4/ndev) -- the many-device regime where
     # re-deriving per-block Grams from triplets would be wasteful
     from slim_tpu.parallel.dist import distributed_learn_sharded_g
     gmodel, gstats = distributed_learn_sharded_g(

@@ -1,5 +1,5 @@
-"""slim_tpu: a TPU-native Sparse LInear Methods (SLIM) top-N recommendation
-framework.
+"""slim_tpu: a Sparse LInear Methods (SLIM) top-N recommendation framework
+for JAX accelerators.
 
 A from-scratch JAX/XLA/Pallas rebuild of the capabilities of KarypisLab/SLIM
 (Ning & Karypis, ICDM 2011): learns an item-item sparse coefficient matrix W

@@ -53,7 +53,7 @@ def setup_logging(dbglvl: int):
     enable_compilation_cache()
 
 
-def banner(version: str = "2.0-tpu"):
+def banner(version: str = "2.0"):
     line = "-" * 66
     print(line)
     print(f"slim_tpu (SLIM, version {version})")

@@ -32,13 +32,14 @@ def main(argv=None):
     parser.add_argument("--nthreads", type=int, default=0)
     parser.add_argument("--ipmdlfile", default=None,
                         help="model file used to warm-start")
-    parser.add_argument("--blocksize", type=int, default=256,
-                        help="item columns per device batch (TPU knob)")
+    parser.add_argument("--blocksize", type=int,
+                        default=SlimConfig.block_size,
+                        help="item columns per device batch")
     parser.add_argument("--dist", default="none",
                         choices=["none", "replicated", "blockwise",
                                  "sharded_g"],
                         help="distributed learn over all visible devices "
-                             "(TPU knob; see docs/MANUAL.md §7)")
+                             "(see docs/MANUAL.md §7)")
     parser.add_argument("trnfile")
     parser.add_argument("mdlfile", nargs="?", default="slim.model")
     args = parser.parse_args(normalise_argv(sys.argv[1:] if argv is None

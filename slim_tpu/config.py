@@ -35,9 +35,9 @@ MTYPES = ("slim", "fslim", "oslim", "ofslim")
 class SlimConfig:
     """Training configuration.
 
-    TPU-specific knobs (block_size, solver_dtype, gram, mesh_shape) have no
-    reference counterpart; ``nthreads`` is kept for API compatibility but on
-    TPU it only controls host-side parsing threads.
+    Device execution knobs (block_size, solver_dtype, gram, kernel) have no
+    reference counterpart; ``nthreads`` is kept for API compatibility but
+    only controls host-side threads.
     """
 
     # regularisation / optimisation (reference api.c:42-52 defaults)
@@ -61,11 +61,15 @@ class SlimConfig:
     nthreads: int = 0           # 0 = all host cores (host-side work only)
     seed: int = 0               # base PRNG seed for CD coordinate shuffling
 
-    # --- TPU execution knobs (new; no reference counterpart) ---
+    # --- device execution knobs (new; no reference counterpart) ---
     block_size: int = 512       # item columns solved per device batch
+                                # (the compact path takes B/2, B or 2B
+                                # from the union widths, at most
+                                # cd_kernel.MAX_BLOCK)
     solver_dtype: str = "float32"
     gram: str = "auto"          # "auto" | "device" | "host"
-    kernel: str = "auto"        # "auto" | "pallas" | "xla"
+    kernel: str = "auto"        # "auto" | "triton" | "xla" (auto: by
+                                # platform, ops/cd_kernel.sweep_impl)
     compact_threshold: int = 4096  # npad above which blocks solve in the
                                 # compacted union-active-set space (keeps
                                 # per-sweep cost O(K_active²) instead of

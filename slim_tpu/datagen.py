@@ -52,3 +52,16 @@ def synth_ml20m(seed: int = 0, scale: float = 1.0) -> CSR:
                           max(int(ML20M_NCOLS * scale), 16),
                           max(int(ML20M_NNZ * scale * scale), 64),
                           seed=seed)
+
+
+def synth_zipf(nrows: int, ncols: int, nevents: int, a: float = 1.25,
+               seed: int = 0) -> CSR:
+    """Binary implicit matrix with zipf(a) item popularity: ``nevents``
+    uniform users x zipf-drawn items (folded into the catalogue),
+    duplicates collapsed.  At 50,000 x 10,000 with 2M events this is the
+    compact-path workload of ``bench.py`` (~1.27M nonzeros)."""
+    rng = np.random.default_rng(seed)
+    users = rng.integers(0, nrows, nevents)
+    items = (rng.zipf(a, nevents * 2) % ncols)[:nevents]
+    return CSR.from_ijv(users, items, np.ones(nevents, np.float32),
+                        nrows, ncols).binarize()

@@ -9,7 +9,7 @@ Covers both reference drivers:
   wrapper sorts both arrays ascending first, core.py:496-497, so the warm
   start walks the regularisation path).
 
-TPU-native wins over the reference: the Gram matrix is computed **once**
+Wins over the reference: the Gram matrix is computed **once**
 and shared by every grid point (the reference re-runs the full
 O(ncols·nnz) screening per point), and prediction/eval run batched on
 device.
@@ -38,12 +38,11 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _learn_with_gram(train, cfg, imodel, gram, g_replicas=None,
-                     keep_device_model=False, warm_pack=None):
+                     keep_device_model=False):
     if cfg.algo == "cd":
         return estimate_model_cd(train, cfg, imodel=imodel, gram=gram,
                                  g_replicas=g_replicas,
-                                 keep_device_model=keep_device_model,
-                                 warm_pack=warm_pack)
+                                 keep_device_model=keep_device_model)
     return estimate_model_admm(train, cfg, imodel=imodel, gram=gram)
 
 
@@ -51,7 +50,7 @@ def _eval_point(model, train, test, fmarker, nrcmds, W_dev=None):
     """Returns (eval record, predict seconds, metric seconds) -- the
     per-point timing split feeds the warm-sweep attribution log.
     ``W_dev``: device-resident dense model retained by the solver
-    (skips the ~220 MB model re-upload per point at ML-20M scale)."""
+    (skips the model re-upload per point)."""
     t0 = time.perf_counter()
     ids, _, counts = predict_topn(model, train, nrcmds=nrcmds, W_dev=W_dev)
     t_pred = time.perf_counter() - t0
@@ -101,31 +100,27 @@ def mselect_core(train: CSR, test: CSR, cfg: SlimConfig, points,
             "best_model_hr": None, "best_model_ar": None}
 
     # device-model retention pays when the eval predicts on the device
-    # dense path (mid-size catalogues): the solver keeps W in HBM and
-    # the per-point ~220 MB model upload disappears
-    from .predict import NATIVE_PREDICT_NPAD, SPARSE_PREDICT_THRESHOLD
+    # dense path (mid-size catalogues): the solver keeps W in device
+    # memory and the per-point model upload disappears
+    from .predict import NATIVE_PREDICT_NPAD, dense_predict_max_npad
     keep_dev = (mesh is None and cfg.algo == "cd"
-                and NATIVE_PREDICT_NPAD < npad <= SPARSE_PREDICT_THRESHOLD)
+                and NATIVE_PREDICT_NPAD < npad <= dense_predict_max_npad())
 
-    pack = None
     for (l1, l2) in points:
         pcfg = cfg.replace(l1r=float(l1), l2r=float(l2))
         t0 = time.perf_counter()
         imodel = model
         model, stats = _learn_with_gram(train, pcfg, imodel, gram,
                                         g_replicas=g_replicas,
-                                        keep_device_model=keep_dev,
-                                        warm_pack=pack)
+                                        keep_device_model=keep_dev)
         t_learn = time.perf_counter() - t0
 
-        # the retained pack serves this point's evaluation AND (rank
-        # space is shared across points) warm-starts the next learn --
-        # only its dense form is dropped between points
+        # the retained pack serves this point's evaluation
         pack = stats.pop("W_dev", None)
         ev, t_pred, t_metric = _eval_point(model, train, test, fmarker,
                                            cfg.nrcmds, W_dev=pack)
         if pack is not None:
-            pack.free_dense()
+            pack.free()
         rec = {"l1r": float(l1), "l2r": float(l2), "nnz": model.nnz,
                "hr": ev.hr, "hr_head": ev.hr_head, "hr_tail": ev.hr_tail,
                "arhr": ev.arhr, "time": t_learn, "time_kind": "per_point",

@@ -3,7 +3,7 @@
 // Components:
 //   * slim_cd_learn  - OpenMP coordinate-descent SLIM solver over CSC
 //     columns.  Implements the same per-column elastic-net nonneg problem
-//     as the TPU kernel (see slim_tpu/ops/cd_kernel.py and SURVEY.md §0);
+//     as the device solver (see slim_tpu/ops/cd_kernel.py and SURVEY.md §0);
 //     used as the measured CPU baseline in bench.py and as a host fallback
 //     backend.  Written from the mathematical spec:
 //       min 1/2||y - Ax||^2 + l2r/2||x||^2 + l1r||x||_1,  x >= 0, x_j = 0
@@ -12,7 +12,7 @@
 //     stop when sum (dx)^2 < optTol or after min(50*nnz_j, maxniters)
 //     sweeps.
 //   * slim_gram_dense - threaded sparse Gram (A^T A) into a dense buffer,
-//     the host path for feeding the TPU solver when the matrix is too
+//     the host path for feeding the device solver when the matrix is too
 //     sparse for the dense-matmul Gram to be worthwhile.
 //   * slim_parse_csr  - fast text parser for the csr/cluto rating formats.
 //
@@ -239,7 +239,7 @@ void slim_gram_dense(int32_t nrows, int32_t ncols, const int64_t *rowptr,
 // ------------------------------------------------------------------ //
 // top-N prediction over a sparse model (CPU baseline for bench.py)
 // ------------------------------------------------------------------ //
-// Scoring parity with the TPU path (and reference predict.c:40-58):
+// Scoring parity with the device path (and reference predict.c:40-58):
 // score[k] = sum_{i in history} rating_i * W[i,k]; history items are
 // excluded; a user gets min(#positive-score items, N) recommendations.
 // W is CSR over items (rowptr/rowind/rowval, nitems rows); hist is CSR

@@ -1,12 +1,12 @@
 """SPMD distributed learning and prediction over a device mesh.
 
-TPU-native replacement for the reference's OpenMP shared-memory fan-out
+Device replacement for the reference's OpenMP shared-memory fan-out
 (estimate.c:371-403).  Data layout and collectives:
 
 * the rating matrix is row(user)-sharded over ``dp``; each device computes
-  a partial Gram ``A_shardᵀ A_shard`` on its MXU and a single
-  ``psum('dp')`` produces the full G everywhere (the only inter-device
-  traffic of the learn phase, riding ICI);
+  a partial Gram ``A_shardᵀ A_shard`` and a single ``psum('dp')``
+  produces the full G everywhere (the only inter-device traffic of the
+  learn phase);
 * item columns are sharded over the flattened (dp, mp) grid; each device
   runs the batched CD kernel on its own column block -- zero communication,
   mirroring the embarrassing parallelism of the reference;
@@ -48,7 +48,7 @@ def _round_up(x: int, m: int) -> int:
 
 def _host_fetch(x) -> np.ndarray:
     """``np.asarray`` for device arrays that may span other processes'
-    devices (multi-controller meshes, e.g. a real TPU pod or the
+    devices (multi-controller meshes, e.g. a multi-host cluster or the
     2-process CI exercise): a sharded output is all-gathered through the
     runtime first; fully-addressable arrays take the plain fetch."""
     if not isinstance(x, jax.Array) or x.is_fully_addressable:
@@ -78,7 +78,7 @@ _sharded_gram_sparse_fns: dict = {}
 
 def _get_sharded_gram_sparse(mesh: Mesh, rb: int, npad: int):
     """Jitted SPMD sparse Gram: every device scatter-densifies its row
-    blocks from padded triplets and accumulates partial Grams on its MXU;
+    blocks from padded triplets and accumulates partial Grams;
     one psum over the whole grid replicates the full G.  The dense rating
     matrix is never materialized anywhere (round-1 weakness #3)."""
     key = (mesh, rb, npad)
@@ -193,12 +193,12 @@ def distributed_learn(train: CSR, cfg, mesh: Mesh, imodel: CSR | None = None):
     Round-2 design (replaces the dense-A prototype): the rating matrix
     ships as sparse triplets row-sharded over the whole grid; partial
     Grams psum into a replicated G (the only collective of the learn);
-    then the SAME single-device driver -- union compaction, Pallas
-    kernels, packed harvests -- runs with column blocks dispatched
+    then the SAME single-device driver -- union compaction, block
+    solves, packed harvests -- runs with column blocks dispatched
     round-robin across the per-device G replicas
-    (``estimate_model_cd(g_replicas=...)``).  Each chip solves its own
+    (``estimate_model_cd(g_replicas=...)``).  Each device solves its own
     blocks concurrently (async dispatch keeps every queue full): the
-    TPU-native form of the reference's OpenMP column fan-out
+    device form of the reference's OpenMP column fan-out
     (estimate.c:371-403), with no dense rating matrix anywhere.
 
     Matches the single-device result (same screening, caps, coordinate
@@ -326,18 +326,20 @@ def _get_blockwise_fns(mesh: Mesh, rb: int, npad: int, Bsup: int, K: int,
     gramc(lr, cc, vv, S)      -> Gs (K, K) replicated
         compact Gram G[S, S] = (A[:, S])ᵀ A[:, S]: per row block the
         S-restricted slice is scatter-densified via an S-position lookup
-        and accumulated on the MXU; psum replicates.
+        and accumulated; psum replicates.
     solve(Gs, gjs, js, caps, x0s, diag_full, seed) -> per-column results
         columns sharded over the flattened grid; every device runs the
         batched CD core against the replicated compact Gram.
     """
+    from ..ops.cd_kernel import (_cd_core, check_sweep_domain,
+                                 fslim_active_mask, sweep_impl)
+
+    impl, precision = sweep_impl()
     key = (mesh, rb, npad, Bsup, K, l1r, l2r, optTol, shuffle,
-           fslim_nnbrs, simtype)
+           fslim_nnbrs, simtype, impl)
     fns = _blockwise_fns.get(key)
     if fns is not None:
         return fns
-
-    from ..ops.cd_kernel import _cd_core, fslim_active_mask
 
     def screen(lr, cc, vv, jarr, diag_full):
         jl = jnp.full((npad,), Bsup, jnp.int32).at[jarr].set(
@@ -402,6 +404,8 @@ def _get_blockwise_fns(mesh: Mesh, rb: int, npad: int, Bsup: int, K: int,
         out_specs=P(None), check_vma=False))
 
     def solve(Gs, gjs, js, caps, x0s, S, yty, seed):
+        # each device solves its Bsup/ndev columns of the superblock
+        check_sweep_domain(impl, *gjs.shape)
         diag_s = jnp.diagonal(Gs)
         pad_mask = S != (npad - 1)
         if fslim_nnbrs > 0:
@@ -414,7 +418,8 @@ def _get_blockwise_fns(mesh: Mesh, rb: int, npad: int, Bsup: int, K: int,
         seed_local = seed + jax.lax.axis_index("dp") * 131071 \
             + jax.lax.axis_index("mp") * 8191
         return _cd_core(Gs, gjs, diag_s, active_s, x0s, caps, yty,
-                        l1r, l2r, optTol, seed_local, shuffle)
+                        l1r, l2r, optTol, seed_local, shuffle, impl,
+                        precision)
 
     cols = P(("dp", "mp"))
     cols2 = P(("dp", "mp"), None)
@@ -478,7 +483,7 @@ def _superblocks_solve(train, cfg, mesh, n, npad, Bsup, p, posmap, caps_p,
     use_warm = imodel is not None and cfg.mtype in ("slim", "oslim")
     imodel_csc = imodel.transpose() if use_warm else None
 
-    # failure recovery at pod scale: per-superblock checkpoint/resume,
+    # failure recovery at cluster scale: per-superblock checkpoint/resume,
     # same signature-keyed store as the single-device driver (solves are
     # idempotent; restart = re-solve missing superblocks only).  In
     # multi-controller runs checkpoint_dir must be a SHARED filesystem --
@@ -646,8 +651,8 @@ def distributed_learn_blockwise(train: CSR, cfg, mesh: Mesh,
     screens through the same memory-bounded chunks (per-chunk top-k is
     the global top-k; the solve re-derives each target's neighbour set
     inside the compact union), so FSLIM also runs at the 2M-item scale.
-    Collective traffic per super-block: (npad, chunk)·nchunks + (K, K)
-    over ICI; peak per-device memory at the 2M-item north star is the
+    Collective traffic per super-block: (npad, chunk)·nchunks + (K, K);
+    peak per-device memory at the 2M-item north star is the
     (npad, chunk) screen buffer (~2GB) + G[S, S].
     """
     from ..solvers.cd import bucket_npad
@@ -712,7 +717,7 @@ def distributed_learn_blockwise(train: CSR, cfg, mesh: Mesh,
 
 
 # --------------------------------------------------------------------- #
-# resident column-sharded G mode (100k-500k items on a pod)
+# resident column-sharded G mode (100k-500k items on many devices)
 # --------------------------------------------------------------------- #
 _gram_colblock_fns: dict = {}
 _g_screen_fns: dict = {}
@@ -722,7 +727,7 @@ _g_gather_fns: dict = {}
 def _get_gram_colblock(mesh: Mesh, rb: int, W_tot: int, width: int):
     """Jitted SPMD fn(lr, cc, vv, c0) -> G[:, c0:c0+width] row-sharded.
     Every device scatter-densifies its row blocks at full width and
-    multiplies against the dynamic column slice on its MXU; a
+    multiplies against the dynamic column slice; a
     reduce-scatter over item rows completes the column block, leaving
     tile G[rows_d, c0:c0+width] on device d (ring traffic ~(N-1)/N of
     one buffer, nothing replicated).  Called once per device column
@@ -827,11 +832,11 @@ def distributed_learn_sharded_g(train: CSR, cfg, mesh: Mesh,
     The middle regime between `distributed_learn` (replicated G, fine to
     ~100k items) and `distributed_learn_blockwise` (G never exists, no
     ceiling, but every superblock re-derives its Gram from the raw triplets):
-    G is computed once, column-sharded over the grid (per-device HBM =
+    G is computed once, column-sharded over the grid (per-device memory =
     npad²·4/ndev -- ~5GB at 500k items on 64 devices), and every
     superblock's screen flags and compact Gram G[S, S] are *gathered*
     from it with one small psum each (ROADMAP #2's "column-shard G with
-    explicit row exchange", the exchanges riding ICI).  Solves and
+    explicit row exchange").  Solves and
     harvests share `_superblocks_solve` with the blockwise mode, so the
     result is exactly the single-device model.  FSLIM delegates to the
     blockwise path (its top-k screen needs ATY values, not flags).
@@ -868,7 +873,7 @@ def distributed_learn_sharded_g(train: CSR, cfg, mesh: Mesh,
     # rows); device d's COLUMN shard G[:, block_d] is the stack of its
     # tiles transposed -- G is symmetric, so G[block_e, block_d] =
     # G[block_d, block_e]^T (bitwise: both entries are the same
-    # fixed-order MXU contraction).  Nothing is ever replicated.
+    # fixed-order contraction).  Nothing is ever replicated.
     W_tot = _round_up(npad, ndev)
     width = W_tot // ndev
     gramb_fn = _get_gram_colblock(mesh, row_block, W_tot, width)
@@ -930,7 +935,7 @@ def make_sharded_predict(mesh: Mesh, nrcmds: int):
     score + top-k (predict.c semantics, see slim_tpu.predict)."""
 
     def score(w, hidx, hval):
-        # dense-history scatter + MXU matmul: no (U, H, npad) gather
+        # dense-history scatter + matrix product: no (U, H, npad) gather
         # intermediate (one power user's H would size the whole block)
         from ..predict import _hist_dense
 
@@ -958,7 +963,7 @@ def make_sharded_predict(mesh: Mesh, nrcmds: int):
 def make_sharded_predict_coo(mesh: Mesh, nrcmds: int, npad: int, n: int):
     """Users sharded over the grid against a replicated padded-row sparse
     model: the COO segment-top-k block (predict._coo_topn_from_hist) runs
-    purely locally per shard -- 2M-item catalogues servable on a pod with
+    purely locally per shard -- 2M-item catalogues servable on a mesh with
     nnz·8 model bytes per device and no npad-wide score rows."""
     from ..predict import _coo_topn_from_hist
 
@@ -975,8 +980,8 @@ def make_sharded_predict_coo(mesh: Mesh, nrcmds: int, npad: int, n: int):
 
 
 def sharded_predict(model: CSR, hist: CSR, mesh: Mesh, nrcmds: int = 10):
-    from ..predict import (COO_PREDICT_NPAD, SPARSE_PREDICT_THRESHOLD,
-                           _bucket, densify_model, sparsify_model_device)
+    from ..predict import (COO_PREDICT_NPAD, _bucket, dense_predict_max_npad,
+                           densify_model, sparsify_model_device)
 
     n = max(model.nrows, model.ncols, hist.ncols)
     ndev = mesh.size
@@ -986,8 +991,8 @@ def sharded_predict(model: CSR, hist: CSR, mesh: Mesh, nrcmds: int = 10):
     # the cutover for testing; 0 disables the override, not the path --
     # there is no npad-wide sparse sharded alternative)
     coo = int(_os.environ.get("SLIM_PREDICT_COO_NPAD", COO_PREDICT_NPAD))
-    cutover = min(SPARSE_PREDICT_THRESHOLD, coo) if coo > 0 \
-        else SPARSE_PREDICT_THRESHOLD
+    dense_max = dense_predict_max_npad()
+    cutover = min(dense_max, coo) if coo > 0 else dense_max
     use_coo = _bucket(n) > cutover
     npad = _bucket(n) if use_coo else _round_up(n + 1, 128)
     upad = _round_up(max(nusers, ndev), ndev)

@@ -1,7 +1,7 @@
 """Device-mesh helpers.
 
 The reference's only parallel axis is an OpenMP loop over item columns
-(estimate.c:371-403).  The TPU-native layout uses a 2-D mesh:
+(estimate.c:371-403).  The device layout uses a 2-D mesh:
 
 * ``dp``  -- user-row sharding for the Gram matmul (partial Grams are
   psum-reduced over this axis: the collective replaces the reference's
@@ -32,11 +32,11 @@ def init_distributed(coordinator_address: str | None = None,
                      process_id: int | None = None) -> None:
     """Initialise the multi-host runtime (jax.distributed).
 
-    The TPU-native replacement for the reference's nonexistent distributed
-    story (it is shared-memory OpenMP only, SURVEY.md §2): after this,
+    The replacement for the reference's nonexistent distributed story (it
+    is shared-memory OpenMP only, SURVEY.md §2): after this,
     ``jax.devices()`` spans all hosts and ``make_mesh`` lays the (dp, mp)
-    grid over the full slice; the Gram psum rides ICI within a slice and
-    DCN across slices, compiled by XLA.  No-op when already initialised
+    grid over every device; XLA compiles the Gram psum into the
+    interconnect's collectives.  No-op when already initialised
     or when running single-process.
     """
     import jax

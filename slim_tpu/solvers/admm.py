@@ -1,9 +1,9 @@
 """ADMM model estimation (dense all-columns-at-once solver).
 
-TPU-native equivalent of src/libslim/estimate.c:38-304.  The reference
-needs MKL for this path (sparse spmmd + LAPACK Cholesky + 30 dgemm
-iterations) and is compiled out otherwise; on TPU the whole algorithm is a
-natural MXU program, so it works everywhere (no MKL gate).
+Device equivalent of src/libslim/estimate.c:38-304.  The reference needs
+MKL for this path (sparse spmmd + LAPACK Cholesky + 30 dgemm iterations)
+and is compiled out otherwise; here the whole algorithm is a chain of
+dense matrix products, so it works everywhere (no MKL gate).
 
 Algorithm parity (constants hardcoded exactly like the reference,
 estimate.c:48-49 -- optTol/maxniters are ignored by design):
@@ -45,8 +45,9 @@ def admm_solve(T, l1r, l2r, n_valid):
     """Run the ADMM iterations on a (padded) dense Gram matrix.
 
     ``T`` is (npad, npad) f32 with zeros outside the leading n_valid block.
-    Returns the dense W.  jitted; all matmuls hit the MXU with f32
-    accumulation.
+    Returns the dense W.  jitted; every matrix product runs at
+    Precision.HIGHEST (full f32: no TF32 rounding of the operands on the
+    GPU).
     """
     import jax
     import jax.numpy as jnp
@@ -64,11 +65,12 @@ def admm_solve(T, l1r, l2r, n_valid):
         c, low = jax.scipy.linalg.cho_factor(M)
         P = jax.scipy.linalg.cho_solve((c, low), eye)
         P = 0.5 * (P + P.T)          # symmetrize (estimate.c:161-164)
-        A = jnp.dot(P, T, preferred_element_type=T.dtype)
+        A = jnp.dot(P, T, preferred_element_type=T.dtype,
+                    precision=jax.lax.Precision.HIGHEST)
         Pdiag = jnp.diagonal(P)
 
         # the dual is maintained in scaled form Cs = C/rho (values stay O(1)
-        # instead of O(rho), the friendlier range for f32 on TPU); the
+        # instead of O(rho), the friendlier range for f32); the
         # iteration is algebraically identical to estimate.c:171-214.
         def body(_, carry):
             W, Cs = carry
@@ -102,7 +104,7 @@ def admm_solve(T, l1r, l2r, n_valid):
 
 def admm_solve_f64(T, l1r, l2r, n_valid):
     """Float64 numpy reference of :func:`admm_solve` (CPU) -- the parity
-    oracle for the f32 TPU path; mirrors the reference's double-precision
+    oracle for the f32 device path; mirrors the reference's double-precision
     MKL pipeline (estimate.c:38-304) step for step."""
     import scipy.linalg as sla
 

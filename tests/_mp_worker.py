@@ -3,8 +3,8 @@
 Each process owns 2 virtual CPU devices; after ``init_distributed`` the
 global mesh spans 2*nproc devices across both OS processes, so the learn's
 collectives (Gram psum / screen psum_scatter) actually cross a process
-boundary -- the code path a real multi-host TPU pod runs, which
-single-process virtual-mesh tests never exercise (VERDICT r2 missing #4).
+boundary -- the code path a real multi-host cluster runs, which
+single-process virtual-mesh tests never exercise.
 
 Usage: python tests/_mp_worker.py <process_id> <num_processes> <port> <mode>
 Prints one "RESULT <json>" line on success.

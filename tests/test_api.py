@@ -123,7 +123,7 @@ def test_predict_caches_resident_sparse_model(rng, monkeypatch):
     the model; results must match the dense path."""
     import slim_tpu.predict as P
 
-    monkeypatch.setattr(P, "SPARSE_PREDICT_THRESHOLD", 64)
+    monkeypatch.setattr(P, "dense_predict_max_npad", lambda: 64)
     mat = random_csr(rng, 60, 100, density=0.15, seed=610)
     trn = SLIMatrix(mat.to_scipy())
     s = SLIM()

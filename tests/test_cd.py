@@ -228,90 +228,6 @@ def test_fslim_active_mask_wide_two_stage():
         assert set(np.nonzero(got[b])[0]) == set(expect)
 
 
-def _v4_shape():
-    """A (B, npad) inside both the v4 and v3 kernel domains (None if the
-    predicates admit nothing small -- then the denylist test is moot)."""
-    from slim_tpu.ops.pallas_cd import (pallas_large_v3_supported,
-                                        pallas_large_v4_supported)
-
-    for B in (128, 256, 512):
-        for npad in (4096, 8192, 28672):
-            if (pallas_large_v4_supported(B, npad)
-                    and pallas_large_v3_supported(B, npad)):
-                return B, npad
-    return None
-
-
-def test_v4_compile_failure_retries_on_v3(tmp_path, monkeypatch):
-    """Round-3 advisor regression: a v4 compile failure must reach the
-    retry with ``variant='v3'`` resolved at dispatch time (an explicit jit
-    static).  Before the fix the retry hit JAX's trace cache with
-    identical statics, replayed the cached v4 jaxpr, failed again, and
-    permanently demoted the shape to the XLA kernel."""
-    from slim_tpu.ops import pallas_cd
-    from slim_tpu.solvers import cd as cd_mod
-
-    shape = _v4_shape()
-    if shape is None:
-        pytest.skip("no shape admits the v4 kernel on this build")
-    monkeypatch.setenv("SLIM_TPU_CACHE_DIR", str(tmp_path))
-    monkeypatch.setattr(cd_mod, "_pallas_failed_shapes", None)
-    monkeypatch.setattr(pallas_cd, "V4_SHAPE_DENYLIST", set())
-
-    seen = []
-
-    def run(im):
-        # mirror _solve_ids/_solve_compact: the variant is resolved
-        # OUTSIDE the traced program, from the live denylist
-        statics = cd_mod._inject_variant({"impl": im}, *shape)
-        seen.append(statics.get("variant"))
-        if statics.get("variant") == "v4":
-            raise RuntimeError("Mosaic failed: exceeds scoped VMEM")
-        return "ok"
-
-    assert cd_mod._dispatch_with_fallback(run, "pallas_large", shape) == "ok"
-    assert seen == ["v4", "v3"]           # retry really flipped variants
-    assert shape in pallas_cd.V4_SHAPE_DENYLIST
-
-    # ...and the denial is persistent: a fresh process (cleared in-memory
-    # sets, same cache dir) resolves straight to v3
-    monkeypatch.setattr(cd_mod, "_pallas_failed_shapes", None)
-    monkeypatch.setattr(pallas_cd, "V4_SHAPE_DENYLIST", set())
-    seen.clear()
-    assert cd_mod._dispatch_with_fallback(run, "pallas_large", shape) == "ok"
-    assert seen == ["v3"]
-
-
-def test_inject_variant_scope():
-    """_inject_variant only touches pallas_large statics and respects an
-    explicit caller choice."""
-    from slim_tpu.solvers.cd import _inject_variant
-
-    assert "variant" not in _inject_variant({"impl": "xla"}, 128, 4096)
-    assert "variant" not in _inject_variant({"impl": "pallas"}, 128, 4096)
-    out = _inject_variant({"impl": "pallas_large"}, 128, 4096)
-    assert out.get("variant") in ("v4", "v3", "eager")
-    pinned = _inject_variant({"impl": "pallas_large", "variant": "eager"},
-                             128, 4096)
-    assert pinned["variant"] == "eager"
-
-
-def test_variant_statics_rekey_exec_cache():
-    """The resolved variant is part of the executable-cache key (it
-    replaced the global-denylist key material, which invalidated every
-    entry whenever one shape failed)."""
-    import numpy as np
-
-    from slim_tpu.ops import exec_cache
-
-    a = np.zeros((4, 4), np.float32)
-    k1 = exec_cache._make_key("e", (a,), {"impl": "pallas_large",
-                                          "variant": "v4"})
-    k2 = exec_cache._make_key("e", (a,), {"impl": "pallas_large",
-                                          "variant": "v3"})
-    assert k1 != k2
-
-
 def test_keep_device_model_matches_assembled_csr():
     """keep_device_model retains the flat harvest packs on device and
     densifies lazily at predict; the densified W must equal densify of
@@ -348,3 +264,197 @@ def test_keep_device_model_compact_space():
     ref = np.asarray(densify_model(model, npad=pack.npad))
     np.testing.assert_allclose(np.asarray(pack.densify()), ref,
                                rtol=0, atol=1e-6)
+
+
+def _sweep_problem(n, npad, nrows, B, ncols_real, seed):
+    """Random rating matrix, its padded Gram and a block of target ids
+    (padded targets point at the zero column npad-1 with cap 0)."""
+    rng = np.random.default_rng(seed)
+    A = (rng.random((nrows, n)) < 0.3).astype(np.float32) * \
+        rng.integers(1, 4, (nrows, n)).astype(np.float32)
+    G = np.zeros((npad, npad), np.float32)
+    G[:n, :n] = A.T @ A
+    j_ids = np.full(B, npad - 1, np.int32)
+    j_ids[:ncols_real] = rng.choice(n, ncols_real, replace=False)
+    nnz = (A != 0).sum(axis=0)
+    caps = np.zeros(B, np.int32)
+    caps[:ncols_real] = np.minimum(50 * nnz[j_ids[:ncols_real]], 10000)
+    return A, G, j_ids, caps
+
+
+def _fslim_top(A, j, nnbrs):
+    G = A.T.astype(np.float64) @ A
+    cn = np.sqrt(np.diag(G))
+    sim = np.where(G[:, j] > 0, G[:, j] / np.maximum(cn, 1e-30), -np.inf)
+    sim[j] = -np.inf
+    return [i for i in np.argsort(-sim)[:nnbrs] if np.isfinite(sim[i])]
+
+
+# (name, n, npad, B, real columns, shuffle, warm, per-column reg, fslim)
+SWEEP_CASES = [
+    ("cyclic", 40, 128, 8, 8, False, False, False, 0),
+    ("shuffled", 60, 256, 16, 16, True, False, False, 0),
+    ("warm_x0", 50, 128, 8, 8, True, True, False, 0),
+    ("per_column_reg", 48, 128, 16, 16, True, False, True, 0),
+    ("fslim", 40, 128, 8, 8, False, False, False, 4),
+    ("inactive_chunks_padded_cols", 100, 384, 16, 11, True, False, False, 0),
+]
+
+
+@pytest.mark.parametrize("case", SWEEP_CASES, ids=[c[0] for c in SWEEP_CASES])
+def test_triton_sweep_matches_oracle(case, monkeypatch):
+    """The chunk-list sweep with the Pallas Triton Gauss-Seidel kernel (in
+    interpret mode here) solves every column to the float64 oracle's
+    optimum, and agrees with the plain XLA sweep."""
+    import functools
+
+    import jax
+    import jax.numpy as jnp
+
+    from slim_tpu.ops import cd_kernel
+    from slim_tpu.ops.cd_triton import gs_chunk
+
+    name, n, npad, B, nreal, shuffle, warm, per_col, nnbrs = case
+    monkeypatch.setattr(cd_kernel, "gs_chunk",
+                        functools.partial(gs_chunk, interpret=True))
+    jax.clear_caches()
+    A, G, j_ids, caps = _sweep_problem(n, npad, 90, B, nreal, seed=len(name))
+    rng = np.random.default_rng(3)
+    if per_col:
+        l1 = rng.uniform(0.2, 2.0, B).astype(np.float32)
+        l2 = rng.uniform(0.3, 2.0, B).astype(np.float32)
+    else:
+        l1 = np.full(B, 0.5, np.float32)
+        l2 = np.full(B, 1.0, np.float32)
+    oracle = np.zeros((B, n))
+    for b in range(nreal):
+        j = int(j_ids[b])
+        top = _fslim_top(A, j, nnbrs) if nnbrs else None
+        oracle[b] = oracle_column(A, j, float(l1[b]), float(l2[b]),
+                                  active_override=top)
+    x0 = np.zeros((B, npad), np.float32)
+    if warm:
+        x0[:, :n] = oracle * rng.uniform(0.5, 1.5, oracle.shape)
+    args = (jnp.asarray(G), jnp.asarray(j_ids), jnp.asarray(caps),
+            jnp.asarray(x0), n, jnp.asarray(l1), jnp.asarray(l2), 1e-12, 7)
+    kw = dict(shuffle=shuffle, fslim_nnbrs=nnbrs, simtype="cos")
+    xk, nk, rk, _, objk = cd_kernel.cd_solve_block_ids(*args, impl="triton",
+                                                       **kw)
+    xx, _, _, _, objx = cd_kernel.cd_solve_block_ids(*args, impl="xla", **kw)
+    xk = np.asarray(xk)
+    np.testing.assert_allclose(xk[:, :n], oracle, atol=2e-4)
+    assert np.all(xk[:, n:] == 0) and np.all(xk[nreal:] == 0)
+    assert np.asarray(rk)[:nreal].all()           # converged within caps
+    assert np.all(np.asarray(nk)[nreal:] == 0)    # padded columns never run
+    np.testing.assert_allclose(xk, np.asarray(xx), atol=1e-5)
+    np.testing.assert_allclose(np.asarray(objk), np.asarray(objx),
+                               rtol=1e-5, atol=1e-6)
+
+
+def test_gs_chunk_kernel_matches_reference():
+    """One chunk: the Triton kernel (interpret mode) against the XLA chunk
+    step, with inactive coordinates (+inf thresholds), a finished
+    column (all +inf, nonzero x kept) and a random visit order."""
+    import jax
+    import jax.numpy as jnp
+
+    from slim_tpu.ops.cd_kernel import gs_chunk_xla
+    from slim_tpu.ops.cd_triton import CHUNK, gs_chunk
+
+    rng = np.random.default_rng(0)
+    B = 16
+    A = (rng.random((200, CHUNK)) < 0.2).astype(np.float32)
+    G = A.T @ A
+    r = (rng.random((B, CHUNK)) * 5).astype(np.float32)
+    x = np.where(rng.random((B, CHUNK)) < 0.3, rng.random((B, CHUNK)),
+                 0).astype(np.float32)
+    t = np.where(rng.random((B, CHUNK)) < 0.5, 1.0, np.inf).astype(np.float32)
+    t[3] = np.inf
+    x[t == np.inf] = 0
+    x[3] = rng.random(CHUNK)
+    l2 = rng.uniform(0.5, 2, B).astype(np.float32)
+    d = np.diag(G).copy()
+    perm = rng.permutation(CHUNK).astype(np.int32)
+    args = [jnp.asarray(a) for a in (r, x, t, l2, d, G, perm)]
+    got = np.asarray(gs_chunk(*args, interpret=True))
+    ref = np.asarray(jax.jit(gs_chunk_xla)(*args))
+    np.testing.assert_allclose(got, ref, rtol=1e-6, atol=1e-6)
+    np.testing.assert_array_equal(got[3], x[3])     # finished column kept
+    assert np.any(got != x)
+
+
+@pytest.mark.parametrize("backend,impl,x3", [
+    ("gpu", "triton", True), ("gpu", "xla", False), ("cpu", "triton", False),
+])
+def test_sweep_precision_by_backend(backend, impl, x3):
+    """TF32x3 products only for the Triton sweep on the GPU; the XLA step
+    and the CPU (no TF32 algorithms) keep Precision.HIGHEST."""
+    import jax
+
+    from slim_tpu.ops import cd_kernel
+
+    want = (jax.lax.DotAlgorithmPreset.TF32_TF32_F32_X3 if x3
+            else jax.lax.Precision.HIGHEST)
+    assert cd_kernel.sweep_impl(impl, backend) == (impl, want)
+
+
+@pytest.mark.parametrize("platform,want", [("gpu", "triton"), ("cpu", "xla")])
+def test_sweep_impl_by_platform(platform, want, monkeypatch):
+    """The block solve is chosen in one place, by platform; with no
+    argument it reads the default device's platform."""
+    import jax
+
+    from slim_tpu.ops.cd_kernel import sweep_impl
+
+    assert sweep_impl(platform=platform).impl == want
+
+    class Dev:
+        pass
+
+    dev = Dev()
+    dev.platform = platform
+    monkeypatch.setattr(jax, "devices", lambda: [dev])
+    assert sweep_impl() == sweep_impl(platform=platform)
+
+
+@pytest.mark.parametrize("impl,B,width,ok", [
+    ("triton", 16, 256, True), ("triton", 12, 256, False),
+    ("triton", 4, 128, False), ("triton", 16, 200, False),
+    ("xla", 12, 256, True), ("xla", 4, 200, False), ("pallas", 16, 256, False),
+])
+def test_check_sweep_domain(impl, B, width, ok):
+    """Shapes outside an implementation's domain are rejected before
+    dispatch (no silent fallback to another kernel)."""
+    from slim_tpu.ops.cd_kernel import check_sweep_domain
+
+    if ok:
+        check_sweep_domain(impl, B, width)
+    else:
+        with pytest.raises(ValueError):
+            check_sweep_domain(impl, B, width)
+
+
+@pytest.mark.gpu
+def test_gs_chunk_compiled_matches_reference_on_gpu():
+    """The kernel as compiled for the card (no interpret mode) against its
+    plain-JAX reference at a real block width."""
+    import jax
+    import jax.numpy as jnp
+
+    from slim_tpu.ops.cd_kernel import gs_chunk_xla
+    from slim_tpu.ops.cd_triton import CHUNK, gs_chunk
+
+    rng = np.random.default_rng(1)
+    B = 1024
+    A = (rng.random((400, CHUNK)) < 0.2).astype(np.float32)
+    G = A.T @ A
+    r = (rng.random((B, CHUNK)) * 5).astype(np.float32)
+    t = np.where(rng.random((B, CHUNK)) < 0.5, 1.0, np.inf) \
+        .astype(np.float32)
+    args = [jnp.asarray(a) for a in (
+        r, np.zeros((B, CHUNK), np.float32), t,
+        np.ones(B, np.float32), np.diag(G).copy(), G,
+        rng.permutation(CHUNK).astype(np.int32))]
+    got = np.asarray(gs_chunk(*args))
+    ref = np.asarray(jax.jit(gs_chunk_xla)(*args))
+    np.testing.assert_allclose(got, ref, rtol=1e-5, atol=1e-6)

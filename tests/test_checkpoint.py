@@ -60,7 +60,7 @@ def test_checkpoint_off_by_default(tmp_path, rng):
 def test_distributed_blockwise_checkpoint_resume(tmp_path, rng):
     """Per-superblock checkpoint/resume in the G-free distributed mode:
     a lost superblock is re-solved, everything else resumes from disk,
-    and the result is identical (pod-scale failure recovery)."""
+    and the result is identical (cluster-scale failure recovery)."""
     from slim_tpu.parallel.dist import distributed_learn_blockwise
     from slim_tpu.parallel.mesh import make_mesh
 

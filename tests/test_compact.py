@@ -2,6 +2,7 @@
 exactly equivalent to the full-width path."""
 
 import numpy as np
+import pytest
 
 from conftest import random_csr
 from slim_tpu.config import SlimConfig
@@ -100,3 +101,44 @@ def test_compact_frac_snap_is_exact(monkeypatch):
     np.testing.assert_array_equal(m_compact.indices, m_full.indices)
     np.testing.assert_allclose(m_compact.values(), m_full.values(),
                                rtol=0, atol=1e-6)
+
+
+@pytest.mark.parametrize("f", [2, 4])
+def test_group_union_flags_match_direct_screen(f):
+    """Wider blocks' union flags ORed from narrower ones equal the
+    direct screen at the wider block (self-exclusion included)."""
+    import jax.numpy as jnp
+
+    from slim_tpu.ops.cd_kernel import block_union_flags, group_union_flags
+
+    rng = np.random.default_rng(f)
+    n, npad, B = 100, 128, 8
+    A = (rng.random((60, n)) < 0.1).astype(np.float32)
+    G = np.zeros((npad, npad), np.float32)
+    G[:n, :n] = A.T @ A
+    u = block_union_flags(jnp.asarray(G), -(-n // B), B, 1.0)
+    got, cnt = group_union_flags(u, f)
+    want = block_union_flags(jnp.asarray(G), -(-n // (B * f)), B * f, 1.0)
+    np.testing.assert_array_equal(np.asarray(got), np.asarray(want))
+    np.testing.assert_array_equal(np.asarray(cnt),
+                                  np.asarray(want).sum(axis=1))
+
+
+@pytest.mark.parametrize("band,want", [(None, 256), (200, 64)])
+def test_compact_block_size_from_union_widths(band, want):
+    """Unions that stay full width take the largest candidate block;
+    unions that grow with the block (a banded Gram) take the smallest."""
+    import jax.numpy as jnp
+
+    from slim_tpu.solvers.cd import _compact_block_size, bucket_npad
+
+    n = 3000
+    npad = bucket_npad(n)
+    i = np.arange(n)
+    near = np.ones((n, n), bool) if band is None else \
+        np.abs(i[:, None] - i[None, :]) < band
+    G = np.zeros((npad, npad), np.float32)
+    G[:n, :n] = np.where(near, 2.0, 0.0)
+    B, u = _compact_block_size(jnp.asarray(G), n, npad, 128, 256, 1.0)
+    assert B == want
+    assert u.shape == (-(-n // B), npad)

@@ -59,95 +59,67 @@ def test_union_flags_match_per_block_oracle(rng):
         assert np.array_equal(u[blk], oracle), f"block {blk}"
 
 
-def _densify_ref(idsT, valsT, npad):
-    """Numpy restatement of the densify contract."""
-    W, R = idsT.shape
-    out = np.zeros((npad, R), np.float32)
-    for w in range(W):
-        for r in range(R):
-            c = idsT[w, r]
-            if c < npad:
-                out[c, r] += 1.0 if valsT is None else valsT[w, r]
-    return out
-
-
-def test_pallas_densify_interpret(rng):
-    """Interpret-mode parity of the densify kernel: sentinel pads, short
-    rows, multiple row/col tiles, binary and valued variants."""
-    import jax.numpy as jnp
-
-    from slim_tpu.ops.pallas_gram import RT, densify_meta, pallas_densify
-
-    npad, W, R = 256, 64, 2 * RT
-    lens = rng.integers(0, W, R)
-    lens[0] = W  # one full row
-    idsT = np.full((W, R), npad, np.int32)
-    valsT = np.zeros((W, R), np.float32)
-    for r in range(R):
-        c = np.sort(rng.choice(npad, lens[r], replace=False))
-        idsT[:lens[r], r] = c
-        valsT[:lens[r], r] = rng.random(lens[r]).astype(np.float32) + 0.5
-    ids_d = jnp.asarray(idsT)
-    wmax, cmin, cmax = densify_meta(ids_d, npad)
-    # binary
-    got = np.asarray(pallas_densify(ids_d, None, wmax, cmin, cmax, npad,
-                                    out_dtype=jnp.float32, interpret=True))
-    np.testing.assert_array_equal(got, _densify_ref(idsT, None, npad))
-    # valued
-    got = np.asarray(pallas_densify(ids_d, jnp.asarray(valsT), wmax, cmin,
-                                    cmax, npad, out_dtype=jnp.float32,
-                                    interpret=True))
-    np.testing.assert_array_equal(got, _densify_ref(idsT, valsT, npad))
-
-
-def test_densify_meta_bounds(rng):
-    import jax.numpy as jnp
-
-    from slim_tpu.ops.pallas_gram import RT, WCH, densify_meta
-
-    npad, W, R = 128, 64, RT
-    idsT = np.full((W, R), npad, np.int32)
-    idsT[:3, 5] = [7, 60, 100]
-    wmax, cmin, cmax = (np.asarray(x)
-                        for x in densify_meta(jnp.asarray(idsT), npad))
-    assert wmax[0] == 3
-    assert cmin[0, 0] == 7 and cmax[0, 0] == 100
-    # all-pad chunks never overlap any tile
-    assert (cmin[0, 1:] == npad).all() and (cmax[0, 1:] == -1).all()
-    assert cmin.shape == (1, W // WCH)
-
-
-@pytest.mark.parametrize("implicit", [True, False])
-def test_gram_pallas_parity(rng, implicit):
-    """gram_device_pallas (interpret mode) == host SpGEMM, including the
-    nnz-sorted row permutation, partial blocks, and W bucketing."""
-    from slim_tpu.ops.gram import gram_device_pallas
-
-    mat = random_csr(rng, 700, 100, density=0.12, implicit=implicit)
-    gh = gram_host(mat, pad_to=128)
-    gp = np.asarray(gram_device_pallas(mat, pad_to=128, interpret=True))
-    if implicit:
-        np.testing.assert_array_equal(gp, gh)   # integer counts: exact
-    else:
-        np.testing.assert_allclose(gp, gh, rtol=1e-5, atol=1e-5)
-
-
-def test_gram_pallas_long_row_residual(rng):
-    """Rows above W_CAP route through the scatter residual; totals match
-    the host oracle."""
+@pytest.mark.parametrize("kind", ["binary", "bf16_exact", "real", "long_rows"])
+def test_gram_device_csr_parity(rng, kind):
+    """The device Gram (CSR indices shipped, rows rebuilt on device, row
+    blocks scatter-densified and contracted) against host SpGEMM: exact
+    integer counts for binary data, exact for bf16-exact ratings (the
+    single bf16 product path), f32-close for arbitrary values, and rows
+    longer than a row block's average (power users)."""
     import scipy.sparse as sp
 
-    from slim_tpu.ops import gram as gram_mod
+    from slim_tpu.ops.gram import gram_device_csr
     from slim_tpu.types import CSR
 
-    dense = (rng.random((40, 64)) < 0.1).astype(np.float32)
-    dense[3, :] = 1.0   # a 64-nnz power row
-    mat = CSR.from_scipy(sp.csr_matrix(dense))
-    old_cap = gram_mod.W_CAP
-    gram_mod.W_CAP = 32  # force row 3 into the residual path
-    try:
-        gp = np.asarray(gram_mod.gram_device_pallas(mat, pad_to=128,
-                                                    interpret=True))
-    finally:
-        gram_mod.W_CAP = old_cap
-    np.testing.assert_array_equal(gp, gram_host(mat, pad_to=128))
+    if kind == "long_rows":
+        dense = (rng.random((90, 100)) < 0.05).astype(np.float32)
+        dense[3, :] = 1.0        # a 100-nnz power row
+        dense[40, ::2] = 2.0
+        mat = CSR.from_scipy(sp.csr_matrix(dense))
+    else:
+        mat = random_csr(rng, 700, 100, density=0.12,
+                         implicit=(kind == "binary"))
+        if kind == "real":
+            mat = CSR.from_arrays(mat.nrows, mat.ncols, mat.indptr,
+                                  mat.indices,
+                                  rng.random(mat.nnz).astype(np.float32)
+                                  + 0.1)
+    gd = np.asarray(gram_device_csr(mat, pad_to=128, row_block=64))
+    gh = gram_host(mat, pad_to=128)
+    if kind == "real":
+        np.testing.assert_allclose(gd, gh, rtol=1e-5, atol=1e-5)
+    else:
+        np.testing.assert_array_equal(gd, gh)
+
+
+def test_compute_gram_auto_respects_device_memory(rng, monkeypatch):
+    """mode='auto' takes the host SpGEMM when the dense G and the solver
+    working set do not fit the device's memory limit, the device path
+    when they do (and on backends that report no limit)."""
+    from slim_tpu.ops import gram as gram_mod
+
+    mat = random_csr(rng, 50, 30, density=0.3)
+    calls = []
+    monkeypatch.setattr(gram_mod, "gram_host",
+                        lambda m, pad_to=None: calls.append("host") or
+                        np.zeros((pad_to, pad_to), np.float32))
+    monkeypatch.setattr(gram_mod, "gram_device_csr",
+                        lambda m, pad_to=None: calls.append("device") or
+                        np.zeros((pad_to, pad_to), np.float32))
+
+    class Dev:
+        def __init__(self, stats):
+            self.stats = stats
+
+        def memory_stats(self):
+            return self.stats
+
+    import jax
+    npad = 1024
+    need = 4 * (3 * npad * npad + 8 * 1024 * npad)
+    for stats, want in [(None, "device"), ({"bytes_limit": need}, "device"),
+                        ({"bytes_limit": need - 1}, "host")]:
+        monkeypatch.setattr(jax, "local_devices", lambda s=stats: [Dev(s)])
+        calls.clear()
+        gram_mod.compute_gram(mat, "auto", pad_to=npad)
+        assert calls == [want], (stats, calls)

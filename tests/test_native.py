@@ -102,7 +102,8 @@ def test_native_predict_implicit_history(rng):
 
 def test_native_fallback_dispatch(rng, monkeypatch):
     """Unpinned small-catalogue predict_topn calls route to the native host
-    kernel (VERDICT r2: the regime where the device loses 35x); any explicit
+    kernel (the regime where the whole job is below the device's dispatch
+    overhead); any explicit
     path choice keeps the call on device, and both agree."""
     import pytest
 

@@ -1,4 +1,5 @@
 import numpy as np
+import pytest
 
 from conftest import random_csr
 from slim_tpu.predict import predict_topn, predict_topn_1vsk
@@ -415,7 +416,7 @@ def test_topk_wide_matches_single_pass_at_bucketed_npads():
 
 def test_sparse_model_bf16_values(rng, monkeypatch):
     """SLIM_PREDICT_WVAL_BF16=1 stores the resident sparse model's values
-    as bfloat16 (half the value HBM/bandwidth); scores still accumulate
+    as bfloat16 (half the value memory/bandwidth); scores still accumulate
     in f32, so results match the f32 model to bf16 rounding."""
     from conftest import random_csr
     from slim_tpu.predict import predict_topn, sparsify_model_device
@@ -441,58 +442,59 @@ def test_sparse_model_bf16_values(rng, monkeypatch):
         assert len(same) >= k - 1
 
 
-def test_predict_densify_scan_parity(rng):
-    """The Pallas-densified dense scan (interpret mode) must reproduce the
-    XLA scatter scan: same scores, ids, counts -- including the history-
-    length sort + inverse permutation and the c < n guard."""
+def _host_topn(W, hist, n, k):
+    """numpy oracle of the dense scoring (predict.c:40-66): history-masked
+    scores, candidates = positive scores, top-k by descending score."""
+    H = hist.to_scipy().toarray().astype(np.float64)[:, :n]
+    S = H @ W[:n, :n].astype(np.float64)
+    S[H != 0] = -np.inf
+    ids = np.argsort(-S, axis=1, kind="stable")[:, :k]
+    sc = np.take_along_axis(S, ids, axis=1)
+    cnt = np.minimum((S > 0).sum(axis=1), k)
+    return ids, sc, cnt
+
+
+def _check_scan_against_host(train, k, implicit):
     import jax
-    import jax.numpy as jnp
 
-    from slim_tpu.predict import (_bucket, _predict_topn_scan,
-                                  _predict_topn_scan_pallas, densify_model)
-    from slim_tpu.solvers.cd import estimate_model_cd
     from slim_tpu.config import SlimConfig
+    from slim_tpu.predict import _bucket, _predict_topn_scan, densify_model
+    from slim_tpu.solvers.cd import estimate_model_cd
 
-    train = random_csr(rng, 600, 90, density=0.08, implicit=False)
-    model, _ = estimate_model_cd(train, SlimConfig(l1r=0.3, l2r=0.5))
-    n = 90
+    n = train.ncols
+    model, _ = estimate_model_cd(train, SlimConfig(l1r=0.2, l2r=0.5))
     npad = _bucket(n)
     W = densify_model(model, npad)
-    prec = jax.lax.Precision.HIGHEST
-    ref = _predict_topn_scan(train, 10, 256, W, n, npad, prec)
-    got = _predict_topn_scan_pallas(train, 10, 256, W, n, npad, prec,
-                                    interpret=True)
-    np.testing.assert_allclose(got[1], ref[1], rtol=1e-5, atol=1e-6)
-    np.testing.assert_array_equal(got[2], ref[2])
-    # distinct random scores => identical rankings
-    np.testing.assert_array_equal(got[0], ref[0])
+    ids, sc, cnt = _predict_topn_scan(train, k, 256, W, n, npad,
+                                      jax.lax.Precision.HIGHEST)
+    eids, esc, ecnt = _host_topn(np.asarray(W), train, n, k)
+    np.testing.assert_array_equal(cnt, ecnt)
+    for u in range(train.nrows):
+        c = int(cnt[u])
+        np.testing.assert_allclose(sc[u, :c], esc[u, :c], rtol=1e-5,
+                                   atol=1e-6)
+        # distinct random scores => identical rankings
+        np.testing.assert_array_equal(ids[u, :c], eids[u, :c])
+        assert (ids[u, c:] == -1).all()
+
+
+def test_predict_densify_scan_parity(rng):
+    """The dense serving scan (history scatter-densified per user block on
+    device, one product against W) reproduces the host oracle on weighted
+    histories, across several scan blocks."""
+    train = random_csr(rng, 600, 90, density=0.08, implicit=False)
+    _check_scan_against_host(train, 10, implicit=False)
 
 
 def test_predict_densify_scan_parity_binary(rng):
-    import jax
-
-    from slim_tpu.predict import (_bucket, _predict_topn_scan,
-                                  _predict_topn_scan_pallas, densify_model)
-    from slim_tpu.solvers.cd import estimate_model_cd
-    from slim_tpu.config import SlimConfig
-
     train = random_csr(rng, 500, 70, density=0.1, implicit=True)
-    model, _ = estimate_model_cd(train, SlimConfig(l1r=0.2, l2r=0.5))
-    n = 70
-    npad = _bucket(n)
-    W = densify_model(model, npad)
-    prec = jax.lax.Precision.HIGHEST
-    ref = _predict_topn_scan(train, 5, 256, W, n, npad, prec)
-    got = _predict_topn_scan_pallas(train, 5, 256, W, n, npad, prec,
-                                    interpret=True)
-    np.testing.assert_array_equal(got[2], ref[2])
-    np.testing.assert_allclose(got[1], ref[1], rtol=1e-5, atol=1e-6)
+    _check_scan_against_host(train, 5, implicit=True)
 
 
-def test_pack_densify_pallas_multipass_parity(rng, monkeypatch):
-    """DeviceModelPack's Pallas slab densify (interpret mode) must equal
-    the scatter path, including the multi-pass windowing that covers
-    runs longer than the width cap (power targets at ML-20M scale)."""
+def test_pack_densify_scatter_parity(rng):
+    """DeviceModelPack's scatter densify maps rank-space runs back to item
+    space exactly: long runs, empty runs and rank-padding runs (dropped)
+    included."""
     import jax.numpy as jnp
 
     import slim_tpu.predict as P
@@ -501,7 +503,7 @@ def test_pack_densify_pallas_multipass_parity(rng, monkeypatch):
     rs = np.zeros(npad, np.int32)
     rl = np.zeros(npad, np.int32)
     lens = rng.integers(0, 12, npad)
-    lens[3] = 100          # long run -> multiple passes at wcap=32
+    lens[3] = 100          # one long run
     lens[n:] = rng.integers(0, 4, npad - n)  # rank-padding runs
     ids, vals = [], []
     pos = 0
@@ -524,19 +526,24 @@ def test_pack_densify_pallas_multipass_parity(rng, monkeypatch):
 
     pack = P.DeviceModelPack(jnp.asarray(val), jnp.asarray(idx),
                              rs, rl, p_pad, posmap_pad, n, npad)
-    monkeypatch.setattr(P, "PREDICT_DENSIFY_WCAP", 32)
-    got = np.asarray(pack._densify_pallas(interpret=True))
-    ref = np.asarray(pack._densify_scatter())
+    got = np.asarray(pack.densify())
+    # oracle: run r (target rank r -> item p_pad[r]) holds rank coords
+    # ids[r] -> item rows p_pad[ids[r]]; coords >= n are dropped
+    ref = np.zeros((npad, npad), np.float32)
+    for r in range(npad):
+        keep = ids[r] < n
+        np.add.at(ref, (p_pad[ids[r][keep]].astype(np.int64),
+                        int(p_pad[r])), vals[r][keep])
     np.testing.assert_allclose(got, ref, rtol=0, atol=1e-6)
     assert np.abs(ref).sum() > 0
 
 
 def test_pack_topn_lanes_are_normal_floats():
-    """TPU fusions flush DENORMAL f32 lanes to zero (hardware-reproduced:
-    raw-bitcast ids came back all-0 through the lax.scan output stacking
-    while normal-range scores survived).  The pack must therefore encode
-    ids so every lane is a normal float; this pins the property on CPU
-    where no flush would catch a regression."""
+    """Fusions may flush DENORMAL f32 lanes to zero (raw-bitcast ids would
+    come back all-0 through the lax.scan output stacking while
+    normal-range scores survive).  The pack must therefore encode ids so
+    every lane is a normal float; this pins the property on CPU where no
+    flush would catch a regression."""
     import jax.numpy as jnp
 
     from slim_tpu.predict import _pack_topn, _unpack_topn
@@ -556,36 +563,51 @@ def test_pack_topn_lanes_are_normal_floats():
     np.testing.assert_allclose(out_sc, [[.5, .4, .3], [9., 8., 0.]])
 
 
-def test_slab_densify_upload_path_parity(rng):
-    """The model-upload densify's slab form (CSR rows as runs, one
-    transpose) must equal the scatter/host densify, including duplicate
-    (row, col) accumulation (models read from files may carry them)."""
+def test_densify_model_device_parity(rng):
+    """The model-upload densify (CSR rows scattered on device) equals the
+    host densify, duplicate (row, col) entries accumulating."""
     import jax.numpy as jnp
+
+    from slim_tpu.predict import densify_model_device
+    from slim_tpu.types import CSR
+
+    n, npad = 300, 384
+    rows = rng.integers(0, n, 4000)
+    cols = rng.integers(0, n, 4000)
+    vals = rng.random(4000).astype(np.float32)
+    indptr = np.zeros(n + 1, np.int64)
+    np.add.at(indptr, rows + 1, 1)
+    indptr = np.cumsum(indptr)
+    order = np.argsort(rows, kind="stable")
+    model = CSR.from_arrays(n, n, indptr, cols[order].astype(np.int32),
+                            vals[order])
+    W_host = np.zeros((npad, npad), np.float32)
+    np.add.at(W_host, (rows, cols), vals)
+    got = np.asarray(densify_model_device(model, npad))
+    np.testing.assert_allclose(got, W_host, rtol=1e-6, atol=1e-5)
+
+
+GIB = 1 << 30
+
+
+@pytest.mark.parametrize("stats,want", [
+    (None, "host"),
+    ({"bytes_limit": 4 * 1000 ** 2 + GIB}, 1000),
+    ({"bytes_limit": 4 * 1000 ** 2 + GIB, "bytes_in_use": 8 * GIB}, 1000),
+    ({"bytes_limit": GIB // 2}, 0),
+])
+def test_dense_predict_max_npad_from_limit(stats, want, monkeypatch):
+    """Dense serving's limit comes from the device's bytes_limit alone (W
+    plus a 1 GiB scan block), whatever is allocated when it is asked."""
+    import jax
 
     import slim_tpu.predict as P
 
-    npad, n = 256, 240
-    rows = rng.integers(0, n, 600)
-    cols = rng.integers(0, n, 600)
-    vals = rng.normal(size=600).astype(np.float32)
-    # force duplicates
-    rows[10:20] = rows[0]
-    cols[10:20] = cols[0]
-    order = np.argsort(rows, kind="stable")
-    rows, cols, vals = rows[order], cols[order], vals[order]
-    indptr = np.zeros(n + 1, np.int64)
-    np.add.at(indptr, rows + 1, 1)
-    np.cumsum(indptr, out=indptr)
-    model = CSR.from_arrays(n, n, indptr, cols.astype(np.int32), vals)
+    class Dev:
+        def memory_stats(self):
+            return stats
 
-    W_host = np.zeros((npad, npad), np.float32)
-    np.add.at(W_host, (rows, cols), vals)
-
-    rs = np.full(npad, model.nnz, np.int32)
-    rl = np.zeros(npad, np.int32)
-    rs[:n] = model.indptr[:n]
-    rl[:n] = np.diff(model.indptr)
-    M = P._slab_densifyT(jnp.asarray(model.indices.astype(np.uint16)),
-                         jnp.asarray(model.values()), rs, rl, npad, npad,
-                         interpret=True)
-    np.testing.assert_allclose(np.asarray(M).T, W_host, rtol=0, atol=1e-5)
+    monkeypatch.setattr(jax, "local_devices", lambda: [Dev()])
+    if want == "host":
+        want = P.HOST_DENSE_PREDICT_NPAD
+    assert P.dense_predict_max_npad() == want
